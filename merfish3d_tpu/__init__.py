@@ -1,4 +1,4 @@
-"""merfish3d-tpu: TPU-native MERFISH post-processing framework.
+"""merfish3d-tpu: JAX MERFISH post-processing framework for NVIDIA GPUs.
 
 Capability-compatible with QI2lab/merfish3d-analysis; built on
 JAX/XLA/Pallas with TensorStore-backed OME-NGFF v0.5 datastore I/O.

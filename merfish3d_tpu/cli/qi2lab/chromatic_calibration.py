@@ -36,6 +36,9 @@ def main(argv=None) -> None:
     )
     p.add_argument("--ufish-checkpoint", type=Path, default=None)
     args = p.parse_args(argv)
+    from ...utils.jaxcache import enable_persistent_cache
+
+    enable_persistent_cache()
     if (args.bead_stacks is None) == (args.bead_image is None):
         raise SystemExit("pass exactly one of --bead-stacks / --bead-image")
 

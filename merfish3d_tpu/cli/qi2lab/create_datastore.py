@@ -508,6 +508,9 @@ def main(argv=None) -> None:
     )
     p.add_argument("--max-flatfield-images", type=int, default=100)
     args = p.parse_args(argv)
+    from ...utils.jaxcache import enable_persistent_cache
+
+    enable_persistent_cache()
     layout = args.layout
     if layout == "auto":
         layout = "qi2lab" if (args.raw_dir / "scan_metadata.csv").exists() else "generic"

@@ -81,7 +81,7 @@ def fuse_all_channels(
     for c in range(1 + n_bits):
         loader = _fiducial_loader if c == 0 else _bit_loader(c - 1)
         stream_fuse(
-            out[c],
+            _Channel(out, c),
             out_shape=out_shape,
             tile_starts_px=starts,
             tile_shape_px=shape_px,
@@ -93,6 +93,16 @@ def fuse_all_channels(
             print(f"fused channel {c}/{n_bits}")
 
 
+class _Channel:
+    """Writable channel ``c`` of the (C, z, y, x) fused array."""
+
+    def __init__(self, array, c: int):
+        self._array, self._c = array, c
+
+    def __setitem__(self, key, value) -> None:
+        self._array[(self._c, *key)] = value
+
+
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(prog="qi2lab-fuse")
     p.add_argument("--datastore-path", required=True, type=Path)
@@ -100,6 +110,9 @@ def main(argv=None) -> None:
     p.add_argument("--chunk-px", type=int, default=512)
     p.add_argument("--overlap-px", type=int, default=64)
     args = p.parse_args(argv)
+    from ...utils.jaxcache import enable_persistent_cache
+
+    enable_persistent_cache()
 
     from ...datastore import qi2labDataStore
     from ...pipeline.stitching import fuse_global_registered

@@ -148,6 +148,9 @@ def decode_pixels(args) -> None:
 
 
 def main(argv=None) -> None:
+    from ...utils.jaxcache import enable_persistent_cache
+
+    enable_persistent_cache()
     decode_pixels(build_parser().parse_args(argv))
 
 

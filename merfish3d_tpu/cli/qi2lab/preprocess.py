@@ -132,6 +132,9 @@ def local_register_data(args) -> None:
 
 
 def main(argv=None) -> None:
+    from ...utils.jaxcache import enable_persistent_cache
+
+    enable_persistent_cache()
     local_register_data(build_parser().parse_args(argv))
 
 

@@ -27,6 +27,9 @@ def main(argv=None) -> None:
                    "(omitted: trains on synthetic renders first)")
     p.add_argument("--downsampling", type=float, nargs=3, default=(1.0, 1.0, 1.0))
     args = p.parse_args(argv)
+    from ...utils.jaxcache import enable_persistent_cache
+
+    enable_persistent_cache()
 
     from ...datastore import qi2labDataStore
     from ...pipeline.segmentation import segment_fiducial

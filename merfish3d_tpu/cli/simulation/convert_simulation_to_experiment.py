@@ -442,6 +442,9 @@ def main(argv=None) -> None:
     )
     p.add_argument("--axial-sigma-um", type=float, default=None)
     args = p.parse_args(argv)
+    from ...utils.jaxcache import enable_persistent_cache
+
+    enable_persistent_cache()
     if args.generate:
         write_raw_experiment(
             args.output_dir,

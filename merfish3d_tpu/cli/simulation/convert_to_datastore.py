@@ -131,6 +131,9 @@ def main(argv=None) -> None:
         default=False,
     )
     args = p.parse_args(argv)
+    from ...utils.jaxcache import enable_persistent_cache
+
+    enable_persistent_cache()
     convert_data(
         args.input_dir,
         args.output_dir,

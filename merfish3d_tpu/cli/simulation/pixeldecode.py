@@ -61,6 +61,9 @@ def main(argv=None) -> None:
     p.add_argument("--estimate-chromatic-affines", action=argparse.BooleanOptionalAction, default=False)
     p.add_argument("--lowpass-sigma", type=float, nargs=3, default=(3.0, 1.0, 1.0))
     args = p.parse_args(argv)
+    from ...utils.jaxcache import enable_persistent_cache
+
+    enable_persistent_cache()
     decode_pixels(
         args.datastore_path,
         minimum_pixels=args.minimum_pixels,

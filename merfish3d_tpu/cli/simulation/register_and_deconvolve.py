@@ -19,6 +19,9 @@ def main(argv=None) -> None:
         help="devices for tile fan-out (0 = all visible)",
     )
     args = p.parse_args(argv)
+    from ...utils.jaxcache import enable_persistent_cache
+
+    enable_persistent_cache()
 
     from ...datastore import qi2labDataStore
     from ...pipeline.registration import DataRegistration

@@ -118,6 +118,9 @@ def main(argv=None) -> None:
     p.add_argument("--output", type=Path, default=None)
     p.add_argument("--results-json", type=Path, default=None)
     args = p.parse_args(argv)
+    from ...utils.jaxcache import enable_persistent_cache
+
+    enable_persistent_cache()
     sweep(
         args.datastore_path,
         args.ground_truth,

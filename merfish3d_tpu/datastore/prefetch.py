@@ -3,7 +3,7 @@
 The reference overlaps I/O with compute by returning TensorStore read
 futures (`qi2labDataStore._load_from_zarr_array:2239-2269`) and running
 one OS process per GPU. Here a small thread pool keeps the next tiles'
-zarr reads (C++ TensorStore, GIL-releasing) in flight while the TPU
+zarr reads (zlib decodes release the GIL) in flight while the device
 processes the current tile — the host/device double-buffering half of the
 pipeline (SURVEY.md §2.9 "Pipeline parallelism" row).
 """
@@ -53,76 +53,36 @@ class BoundedWriter:
     caller keeps computing, with at most ``depth`` writes (and their
     array references) pending — the write half of the host/device
     pipeline (the reference hides writes inside per-GPU worker processes;
-    TensorStore writes release the GIL, so one thread suffices).
+    zlib and file writes release the GIL, so one thread suffices).
 
-    Use as a context manager; exit drains the queue and re-raises the
-    first write error. Writes targeting disjoint datastore arrays are
-    safe to overlap with reads elsewhere (same structural guarantee the
-    decode extraction thread relies on).
+    Use as a context manager; exit drains the queue, re-raises the first
+    write error (unless another error is already propagating) and shuts
+    the thread down. Writes targeting disjoint datastore arrays are safe
+    to overlap with reads elsewhere (same structural guarantee the decode
+    extraction thread relies on).
     """
 
     def __init__(self, depth: int = 2):
         import threading
         from collections import deque
 
-        self._pool = ThreadPoolExecutor(max_workers=1)
+        self._pool = ThreadPoolExecutor(max_workers=1, thread_name_prefix="writer")
         self._pending = deque()
         self._depth = max(1, depth)
         # submit/drain may be called from multiple registration fan-out
         # threads when the writer is a shared deferred-persistence queue
         self._lock = threading.Lock()
-        # pause gate, checked at the START of each job: paused queues
-        # hold their remaining jobs so latency-critical transfers (a
-        # decode's readbacks on a half-duplex link) aren't starved by
-        # background drains; in-flight jobs always finish
-        self._gate = threading.Event()
-        self._gate.set()
-        # generation counter lets submit() temporarily open a paused gate
-        # to reap the head job without clobbering a concurrent resume()
-        self._gate_gen = 0
-
-    def pause(self) -> None:
-        with self._lock:
-            self._gate_gen += 1
-            self._gate.clear()
-
-    def resume(self) -> None:
-        with self._lock:
-            self._gate_gen += 1
-            self._gate.set()
-
-    def _run_gated(self, fn, args, kwargs):
-        self._gate.wait()
-        return fn(*args, **kwargs)
 
     def submit(self, fn: Callable, /, *args, **kwargs) -> None:
         while True:
             with self._lock:
                 if len(self._pending) < self._depth:
-                    self._pending.append(
-                        self._pool.submit(self._run_gated, fn, args, kwargs)
-                    )
+                    self._pending.append(self._pool.submit(fn, *args, **kwargs))
                     return
                 head = self._pending.popleft()
-                # a full queue must make room even while paused: the head
-                # job is itself blocked on the gate, so waiting on it with
-                # the gate down deadlocks submit until some OTHER thread
-                # resumes (ADVICE r4). Open the gate for the wait and
-                # restore the pause only if no pause/resume intervened.
-                reopened_gen = None
-                if not self._gate.is_set():
-                    self._gate_gen += 1
-                    reopened_gen = self._gate_gen
-                    self._gate.set()
             head.result()  # blocks; re-raises failures
-            if reopened_gen is not None:
-                with self._lock:
-                    if self._gate_gen == reopened_gen:
-                        self._gate_gen += 1
-                        self._gate.clear()
 
     def drain(self) -> None:
-        self.resume()  # draining a paused queue must not deadlock
         while True:
             with self._lock:
                 if not self._pending:
@@ -138,7 +98,6 @@ class BoundedWriter:
             if exc_type is None:
                 self.drain()
             else:  # don't mask the original error; still reap the queue
-                self._gate.set()
                 while True:
                     with self._lock:
                         if not self._pending:

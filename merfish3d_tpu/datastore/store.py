@@ -1166,7 +1166,7 @@ class qi2labDataStore:
         Stored as uint8 with a 1/255 scale (attr ``quantization``):
         probabilities live in [0, 1], the pipeline quantizes predictor
         output to k/255 at the source (pipeline/registration.py) so every
-        consumer — device cache, disk, CPU and TPU paths — sees the SAME
+        consumer — device cache, disk, host and device paths — sees the SAME
         k/255 values, and the u8 volume is a quarter of f32's bytes on
         the device→host link and the single-core compressor, the two
         measured bottlenecks of the per-tile critical path. Loads

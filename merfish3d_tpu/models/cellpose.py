@@ -3,7 +3,7 @@
 The reference delegates segmentation to Cellpose-SAM run on the fused
 fiducial max projection (`/root/reference/src/merfish3danalysis/cli/
 qi2lab_microscopes/segment_fiducial.py:24-270`) — an external torch
-model.  This module provides the native TPU path with the same
+model.  This module provides a native JAX path with the same
 algorithmic contract Cellpose defined:
 
 1. a residual U-Net (``CPNet``) predicts a 2-channel spatial flow field

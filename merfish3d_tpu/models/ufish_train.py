@@ -23,7 +23,8 @@ import jax.numpy as jnp
 import numpy as np
 import optax
 
-from .ufish import UFishNet, UFishPredictor, _percentile_normalize
+from .ufish import UFishPredictor, _percentile_normalize
+from .ufish_flax import UFishNet
 
 
 def render_training_batch(

@@ -1,6 +1,6 @@
-"""Connected components + region properties on TPU.
+"""Connected components + region properties on the device.
 
-TPU-native replacement for cuCIM ``label`` / skimage ``regionprops_table``
+JAX replacement for cuCIM ``label`` / skimage ``regionprops_table``
 (reference `PixelDecoder._extract_barcodes:2476-2770`): connected regions of
 equal decoded codeword value, 26-connectivity in 3D (connectivity=3) or
 per-plane 8-connectivity in 2D mode with global label offsets

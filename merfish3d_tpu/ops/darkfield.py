@@ -1,6 +1,6 @@
 """Dark-channel dehazing / darkfield sectioning toolkit.
 
-TPU-native reimplementation of the reference standalone module
+JAX reimplementation of the reference standalone module
 (`utils/darkfield.py:1-518`, CuPy): the full dark-sectioning recipe —
 frequency split of each plane into high/low bands keyed to the optical
 PSF (`separate_hi_lo`), a PSF-support-derived dark-channel window
@@ -8,7 +8,7 @@ PSF (`separate_hi_lo`), a PSF-support-derived dark-channel window
 spatially varying atmosphere from the low-frequency envelope
 (`dehaze_fast2`), and hi + lo recombination (`dark_sectioning`).
 
-TPU structuring: the reference loops z planes serially on the GPU; here
+Structure: the reference loops z planes serially on the GPU; here
 the Fourier filters and the block size are computed once per volume on
 the host (they depend only on geometry + optics), and every z plane runs
 through ONE jitted, vmapped program — band split, dark channels,
@@ -276,7 +276,7 @@ def dark_sectioning(
     with the envelope-driven atmosphere and the `confirm_block` window,
     recombine ``lo/2 + hi``, crop, rescale to uint16.
 
-    TPU-first: the reference's serial per-plane GPU loop becomes a
+    Batched: the reference's serial per-plane GPU loop becomes a
     vmapped jitted program over bounded z chunks (one compiled shape, the
     last chunk padded); filters and the block size are host setup shared
     by every plane. ``z_chunk=None`` sizes the chunk to a ~2 GiB HBM

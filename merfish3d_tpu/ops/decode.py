@@ -1,6 +1,6 @@
-"""Per-pixel MERFISH nearest-codeword decoding on the MXU.
+"""Per-pixel MERFISH nearest-codeword decoding as one matmul.
 
-TPU-native replacement for the reference decode hot loop
+JAX replacement for the reference decode hot loop
 (`PixelDecoder._decode_pixels:2148-2264`, `_scale_pixel_traces:1976-2024`,
 `_normalize_pixel_traces:2058-2092`, `_calculate_distances:2094-2146` which
 uses cuVS ``pairwise_distance`` + argmin):
@@ -9,13 +9,8 @@ Both pixel traces and codewords are L2-normalized, so the Euclidean
 nearest codeword reduces to ``argmax(t · c)`` with
 ``min_dist = sqrt(2 - 2 max(t · c))`` — a single (pixels × bits) @
 (bits × codewords) matmul plus a row max/argmax. The scale→clip→normalize
-prologue fuses into the matmul.
-
-Two implementations with identical numerics:
-- :func:`_decode_chunk_xla` — pure jnp (portable, used in CPU tests),
-- :func:`_decode_chunk_pallas` — fused Pallas kernel tiling pixels into
-  VMEM blocks with the padded codebook resident (the BASELINE north star,
-  SURVEY.md §2.8).
+prologue fuses into the matmul, as cuVS's expanded-distance GEMM does for
+the reference.
 
 The volume API (:func:`decode_volume`) processes a z-chunked
 ``(bits, Z, Y, X)`` stack and returns the decoded codeword index (int16,
@@ -30,15 +25,6 @@ from functools import partial
 import jax
 import jax.numpy as jnp
 import numpy as np
-
-try:  # Pallas is TPU-only at runtime; import lazily for CPU test envs
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    _HAS_PALLAS = True
-except Exception:  # pragma: no cover
-    _HAS_PALLAS = False
-
 
 def normalize_codebook(codebook_matrix: np.ndarray) -> np.ndarray:
     """L2-normalize codeword rows (reference `_normalize_codebook:585-639`)."""
@@ -63,9 +49,8 @@ def _scale_clip_normalize(traces, background, normalization):
     """(t - bg)/norm → clip [0,1] → L2 normalize; returns (unit, magnitude,
     scaled) (reference `:1976-2092`).
 
-    Layout: ``traces`` is **(bits, N)** — bits in sublanes, pixels in lanes.
-    A pixels-major (N, bits=16) layout pads 16 → 128 lanes on TPU (8x HBM
-    waste); bits-major wastes nothing and needs no transposes.
+    Layout: ``traces`` is **(bits, N)**: the planes of a ``(bits, Z, Y, X)``
+    stack flatten to it with no copy and no transpose.
     """
     scaled = (traces - background[:, None]) / normalization[:, None]
     scaled = jnp.clip(scaled, 0.0, 1.0)
@@ -74,107 +59,26 @@ def _scale_clip_normalize(traces, background, normalization):
     return unit, mag, scaled
 
 
-def _decode_chunk_xla(traces, codebook_t, background, normalization):
-    """traces: (bits, N) f32; codebook_t: (bits, words) L2-normalized."""
+def _decode_chunk(traces, codebook_t, background, normalization):
+    """traces: (bits, N) f32; codebook_t: (bits, words) L2-normalized.
+
+    The dot runs at HIGHEST precision: a float32 matmul may otherwise run
+    in TF32 (about three decimal digits), which moves argmax ties and the
+    distance threshold. K is the bit count, so the cost is nil."""
     unit, mag, scaled = _scale_clip_normalize(traces, background, normalization)
-    sims = jnp.dot(codebook_t.T, unit, preferred_element_type=jnp.float32)
+    sims = jnp.dot(
+        codebook_t.T, unit, preferred_element_type=jnp.float32,
+        precision=jax.lax.Precision.HIGHEST,
+    )
     best = jnp.argmax(sims, axis=0).astype(jnp.int32)
     max_sim = jnp.max(sims, axis=0)
     dist = jnp.sqrt(jnp.maximum(2.0 - 2.0 * max_sim, 0.0))
     return best, dist, mag, scaled
 
 
-def _pad_to(x, size, axis, value=0.0):
-    pad = size - x.shape[axis]
-    if pad <= 0:
-        return x
-    widths = [(0, 0)] * x.ndim
-    widths[axis] = (0, pad)
-    return jnp.pad(x, widths, constant_values=value)
-
-
-def _decode_kernel(traces_ref, cb_ref, bg_ref, norm_ref, best_ref, dist_ref, mag_ref, scaled_ref):
-    """Fused Pallas decode: scale+clip+normalize+MXU matmul+argmax.
-
-    Bits-major layout: traces block (BITS_P, TILE_N), codebook (WORDS_P,
-    BITS_P); similarities (WORDS_P, TILE_N) never leave VMEM."""
-    traces = traces_ref[:]  # (BITS_P, TILE_N)
-    bg = bg_ref[:]          # (BITS_P, 1)
-    nrm = norm_ref[:]
-    scaled = jnp.clip((traces - bg) / nrm, 0.0, 1.0)
-    mag = jnp.sqrt(jnp.sum(scaled * scaled, axis=0, keepdims=True))
-    unit = scaled / jnp.maximum(mag, 1e-12)
-    sims = jnp.dot(cb_ref[:], unit, preferred_element_type=jnp.float32)
-    best = jnp.argmax(sims, axis=0).astype(jnp.int32)
-    max_sim = jnp.max(sims, axis=0)
-    best_ref[:] = best[None, :]
-    dist_ref[:] = jnp.sqrt(jnp.maximum(2.0 - 2.0 * max_sim, 0.0))[None, :]
-    mag_ref[:] = mag
-    scaled_ref[:] = scaled
-
-
-@partial(jax.jit, static_argnames=("tile_n",))
-def _decode_chunk_pallas(traces, codebook_t, background, normalization, tile_n: int = 4096):
-    """Pallas-fused decode over a (bits, N) chunk. Words are padded to the
-    sublane tile with -1 rows (unit traces ≥ 0, so padded similarities can
-    never beat a real codeword except in the all-zero-trace case, where the
-    distance ≥ sqrt(2) fails the threshold anyway)."""
-    bits, n = traces.shape
-    words = codebook_t.shape[1]
-    bits_p = max(8, -(-bits // 8) * 8)
-    words_p = max(8, -(-words // 8) * 8)
-    n_p = -(-n // tile_n) * tile_n
-
-    traces_p = _pad_to(_pad_to(traces, n_p, 1), bits_p, 0)
-    # codebook as (words_p, bits_p), padded words = -1 rows
-    cb_p = _pad_to(_pad_to(codebook_t.T, bits_p, 1), words_p, 0, value=-1.0)
-    bg_p = _pad_to(background[:, None], bits_p, 0)
-    # padded normalization = 1 avoids div-by-zero on padded bit rows
-    norm_p = _pad_to(normalization[:, None], bits_p, 0, value=1.0)
-
-    grid = (n_p // tile_n,)
-    best, dist, mag, scaled = pl.pallas_call(
-        _decode_kernel,
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((bits_p, tile_n), lambda i: (0, i), memory_space=pltpu.VMEM),
-            pl.BlockSpec((words_p, bits_p), lambda i: (0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((bits_p, 1), lambda i: (0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((bits_p, 1), lambda i: (0, 0), memory_space=pltpu.VMEM),
-        ],
-        out_specs=(
-            pl.BlockSpec((1, tile_n), lambda i: (0, i), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, tile_n), lambda i: (0, i), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, tile_n), lambda i: (0, i), memory_space=pltpu.VMEM),
-            pl.BlockSpec((bits_p, tile_n), lambda i: (0, i), memory_space=pltpu.VMEM),
-        ),
-        out_shape=(
-            jax.ShapeDtypeStruct((1, n_p), jnp.int32),
-            jax.ShapeDtypeStruct((1, n_p), jnp.float32),
-            jax.ShapeDtypeStruct((1, n_p), jnp.float32),
-            jax.ShapeDtypeStruct((bits_p, n_p), jnp.float32),
-        ),
-    )(traces_p, cb_p, bg_p, norm_p)
-    return (
-        best[0, :n],
-        dist[0, :n],
-        mag[0, :n],
-        scaled[:bits, :n],
-    )
-
-
-def _use_pallas() -> bool:
-    if not _HAS_PALLAS:
-        return False
-    try:
-        return jax.devices()[0].platform == "tpu"
-    except Exception:  # pragma: no cover
-        return False
-
-
 @partial(
     jax.jit,
-    static_argnames=("magnitude_threshold", "distance_threshold", "use_pallas"),
+    static_argnames=("magnitude_threshold", "distance_threshold"),
 )
 def decode_planes(
     bit_planes: jnp.ndarray,  # (bits, P, Y, X) float32 (already lowpassed/warped)
@@ -184,21 +88,15 @@ def decode_planes(
     *,
     magnitude_threshold: tuple[float, float] = (1.5, 10.0),
     distance_threshold: float = 0.5172,
-    use_pallas: bool = False,
 ):
     """Decode a block of z-planes. Returns (decoded int16 [-1 unassigned],
     magnitude f16, distance f16, scaled f16) shaped like the spatial dims
     (reference `_decode_pixels:2148-2264`)."""
     bits, p, ny, nx = bit_planes.shape
     traces = bit_planes.reshape(bits, -1)  # (bits, N): contiguous, no copy
-    if use_pallas:
-        best, dist, mag, scaled = _decode_chunk_pallas(
-            traces, codebook_t, background, normalization
-        )
-    else:
-        best, dist, mag, scaled = _decode_chunk_xla(
-            traces, codebook_t, background, normalization
-        )
+    best, dist, mag, scaled = _decode_chunk(
+        traces, codebook_t, background, normalization
+    )
     lo, hi = magnitude_threshold
     assigned = (dist <= distance_threshold) & (mag >= lo) & (mag <= hi)
     decoded = jnp.where(assigned, best, -1).astype(jnp.int16)
@@ -219,19 +117,16 @@ def decode_volume(
     magnitude_threshold: tuple[float, float] = (1.5, 10.0),
     distance_threshold: float,
     z_chunk: int = 8,
-    use_pallas: bool | None = None,
     return_scaled: bool = True,
 ):
     """Decode a full tile volume in z-chunks (bounding device memory to
-    ``bits × z_chunk × Y × X``, the TPU analog of the reference per-z-plane
+    ``bits × z_chunk × Y × X``, the analog of the reference per-z-plane
     loop `PixelDecoder.py:2187-2253`).
 
     ``return_scaled=False`` skips materializing + reading back the
     ``(bits, Z, Y, X)`` scaled-trace array (the normalization-optimization
     path discards it — review r3: ~bits× the volume of wasted device→host
     transfer per tile per iteration)."""
-    if use_pallas is None:
-        use_pallas = _use_pallas()
     cb_t = jnp.asarray(normalize_codebook(codebook_matrix).T)
     bg = jnp.asarray(background, jnp.float32)
     norm = jnp.asarray(normalization, jnp.float32)
@@ -256,7 +151,6 @@ def decode_volume(
             norm,
             magnitude_threshold=tuple(magnitude_threshold),
             distance_threshold=float(distance_threshold),
-            use_pallas=use_pallas,
         )
         decoded[z0:z1] = np.asarray(d)[:p]
         mag[z0:z1] = np.asarray(m)[:p]

@@ -1,6 +1,6 @@
-"""Deformable residual flow estimation (SOFIMA-equivalent) on TPU.
+"""Deformable residual flow estimation (SOFIMA-equivalent) in JAX.
 
-TPU-native re-derivation of the reference SOFIMA pipeline
+Re-derivation of the reference SOFIMA pipeline
 (`utils/sofima_registration.py:499-713`): after affine initialization, a
 residual deformable flow field is estimated as
 
@@ -43,7 +43,7 @@ class SofimaRegistrationConfig:
     """Deformable-registration knobs, field-compatible with the reference
     `SofimaRegistrationConfig` (`utils/sofima_registration.py:9-46`).
 
-    Two reference field groups have a different TPU-side mechanism and
+    Two reference field groups have a different mechanism here and
     therefore different knobs:
 
     - ``subpixel_offsets`` / ``subpixel_batch_size`` (the reference's
@@ -55,7 +55,7 @@ class SofimaRegistrationConfig:
       ``relax_iterations`` (≈ mesh_num_iters) and ``relax_tolerance``
       (≈ mesh_stop_v_max).
 
-    ``batch_size`` defaults TPU-sized (512 patches per vmapped FFT
+    ``batch_size`` defaults large (512 patches per vmapped FFT
     batch; the reference's 32 suits smaller GPU launches) — it affects
     memory/speed only, never results.
     """

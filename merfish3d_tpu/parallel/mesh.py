@@ -1,20 +1,20 @@
 """Device mesh + sharded pipeline steps.
 
-TPU-native replacement for the reference's process-per-GPU distribution
+Replacement for the reference's process-per-GPU distribution
 (SURVEY.md §2.9): instead of spawning one OS process per device and
 partitioning tiles/rounds/bits statically
 (`PixelDecoder.decode_all_tiles:4363-4392`,
-`DataRegistration._generate_registrations:2156-2173`), we lay a
-``jax.sharding.Mesh`` over the chips with axes ``(tile, z)``:
+`DataRegistration._generate_registrations:2156-2173`), one process lays a
+``jax.sharding.Mesh`` over the cards with axes ``(tile, z)``:
 
 - **tile axis** — data parallelism over tiles/bits (the dominant axis),
 - **z axis** — spatial domain decomposition inside one volume when a tile
-  exceeds a chip's HBM; XLA inserts the halo exchanges for the z-blurred
+  exceeds a card's memory; XLA inserts the halo exchanges for the z-blurred
   convolutions automatically (GSPMD), replacing the reference's
   recompute-halo tiling (`rlgc.py:908-1020`).
 
-Cross-device reductions (per-bit normalization statistics) ride ICI via
-``psum`` — replacing the reference's temp-parquet gather
+Cross-device reductions (per-bit normalization statistics) are ``psum``
+collectives, which XLA hands to NCCL on the GPU — replacing the reference's temp-parquet gather
 (`PixelDecoder._save_barcodes:2785-2791`).
 """
 
@@ -83,7 +83,7 @@ def decode_pipeline_step(
 ):
     """One full sharded decode step over a batch of tiles: Gaussian lowpass
     (z-sharded conv → GSPMD halo exchange) → scale/clip/normalize →
-    MXU nearest-codeword → assignment masks → per-bit statistics reduced
+    nearest-codeword matmul → assignment masks → per-bit statistics reduced
     across the mesh (the normalization-update reduction).
 
     Shard-friendly formulation: bits live on the trailing contraction axis
@@ -98,8 +98,11 @@ def decode_pipeline_step(
     scaled = jnp.clip((x - background) / normalization, 0.0, 1.0)
     mag = jnp.sqrt(jnp.sum(scaled * scaled, axis=-1))
     unit = scaled / jnp.maximum(mag, 1e-12)[..., None]
+    # HIGHEST: a float32 einsum may otherwise run in TF32 and move argmax
+    # ties; K is the bit count, so the cost is nil
     sims = jnp.einsum(
-        "...b,bw->...w", unit, codebook_t, preferred_element_type=jnp.float32
+        "...b,bw->...w", unit, codebook_t, preferred_element_type=jnp.float32,
+        precision=jax.lax.Precision.HIGHEST,
     )
     best = jnp.argmax(sims, axis=-1).astype(jnp.int16)
     dist = jnp.sqrt(jnp.maximum(2.0 - 2.0 * jnp.max(sims, axis=-1), 0.0))
@@ -108,7 +111,7 @@ def decode_pipeline_step(
     decoded = jnp.where(assigned, best, -1)
 
     # per-bit statistics over assigned voxels — reduces across the full
-    # mesh (tile AND z shards): XLA emits the psum over ICI
+    # mesh (tile AND z shards): XLA emits the psum
     w = assigned[..., None].astype(jnp.float32)
     bit_sums = jnp.sum(scaled * w, axis=(0, 1, 2, 3))
     counts = jnp.maximum(jnp.sum(w, axis=(0, 1, 2, 3)), 1.0)
@@ -180,7 +183,7 @@ def _make_sharded_tile_decoder_cached(
 
     Semantics are EXACTLY the single-device path
     (:func:`merfish3d_tpu.ops.filters.gaussian_lowpass` →
-    :func:`merfish3d_tpu.ops.decode._decode_chunk_xla` + thresholds):
+    :func:`merfish3d_tpu.ops.decode._decode_chunk` + thresholds):
     `shard_map` hands each device its own whole tiles, so the per-tile
     numerics are bit-identical to a 1-device run — the CPU determinism
     test asserts this. Replaces the reference's per-GPU worker processes
@@ -194,7 +197,7 @@ def _make_sharded_tile_decoder_cached(
     """
     from jax import shard_map
 
-    from ..ops.decode import _decode_chunk_xla
+    from ..ops.decode import _decode_chunk
     from ..ops.filters import gaussian_lowpass
 
     sigma = tuple(float(s) for s in sigma)
@@ -208,7 +211,7 @@ def _make_sharded_tile_decoder_cached(
             if any(s > 0 for s in sigma)
             else vol.astype(jnp.float32)
         )
-        best, dist, mag, scaled = _decode_chunk_xla(
+        best, dist, mag, scaled = _decode_chunk(
             lp.reshape(bits, -1), cb_t, bg, norm
         )
         assigned = (dist <= thr) & (mag >= lo) & (mag <= hi)
@@ -216,7 +219,7 @@ def _make_sharded_tile_decoder_cached(
         # per-bit foreground statistics (sum of scaled trace over assigned
         # voxels, assigned count): the optimizer's device-side convergence
         # diagnostic, psum-reduced across the tile mesh axis below —
-        # the ICI replacement for the reference's temp-parquet gather
+        # the collective replacement for the reference's temp-parquet gather
         # (`_save_barcodes:2785-2791`; exact medians stay host-side)
         w = assigned.astype(jnp.float32)[None, :]
         stats = jnp.stack(
@@ -240,8 +243,8 @@ def _make_sharded_tile_decoder_cached(
         decoded, mag, dist, intensity, stats = jax.vmap(
             _one, in_axes=(0, None, None, None)
         )(tiles, cb_t, bg, norm)
-        # cross-device reduction over the tile axis (XLA emits the psum
-        # over ICI); replicated (2, bits) result
+        # cross-device reduction over the tile axis (XLA emits the psum);
+        # replicated (2, bits) result
         bit_stats = jax.lax.psum(jnp.sum(stats, axis=0), "tile")
         return decoded, mag, dist, intensity, bit_stats
 
@@ -256,6 +259,6 @@ def _make_sharded_tile_decoder_cached(
 
 def put_tiles_sharded(mesh: Mesh, tiles: np.ndarray):
     """Transfer a (T, ...) host batch with the leading axis sharded over the
-    tile mesh axis (each chip receives only its own tiles over PCIe)."""
+    tile mesh axis (each card receives only its own tiles)."""
     spec = P(*(("tile",) + (None,) * (tiles.ndim - 1)))
     return jax.device_put(tiles, NamedSharding(mesh, spec))

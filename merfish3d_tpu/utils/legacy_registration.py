@@ -4,7 +4,7 @@ The reference keeps an older SimpleITK + `warpfield` code path alongside
 the production multiview/SOFIMA stack: phase-correlation rigid estimates
 returned as ``sitk.TranslationTransform``, a resampling `apply_transform`,
 and a coarse-to-fine block-deformable `compute_warpfield`. This module
-provides the same call surface TPU-natively — the rigid estimate runs the
+provides the same call surface in JAX — the rigid estimate runs the
 batched phase-correlation kernel, resampling runs the separable
 roll-blend warp, and the deformable field comes from the SOFIMA-style
 patch cross-correlation flow (two levels, mirroring the reference's
@@ -130,7 +130,7 @@ def compute_rigid_transform(
             ),
             np.float64,
         )
-        del mask  # the TPU kernel scores rolled-overlap candidates instead
+        del mask  # the kernel scores rolled-overlap candidates instead
         for i in range(len(shift)):
             scale = downsample_factors[i] if downsample_factors[i] > 1 else 1.0
             shift[i] = -float(shift[i]) * float(scale)
@@ -171,7 +171,7 @@ def compute_warpfield(
     `registration.py:28-108`, the `warpfield` recipe: translation level,
     then block levels [21,73,73] and [5,17,17] at stride 0.75).
 
-    TPU-native: a rigid phase-correlation level, then two SOFIMA-style
+    Here: a rigid phase-correlation level, then two SOFIMA-style
     patch-flow levels at the same block geometries. Returns
     ``(warped_image, warp_field, block_size, block_stride)`` where
     ``warp_field`` is (3, fz, fy, fx) float32 with channels X, Y, Z in

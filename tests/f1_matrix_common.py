@@ -1,6 +1,6 @@
 """Shared harness for the pinned F1 regression matrix.
 
-The TPU analog of the reference's standard simulation matrix
+The analog of the reference's standard simulation matrix
 (`tests/test_simulation_example_pipeline.py:158-183,244-313`):
 {cells, uniform} x {0.315, 1.0, 1.5 um axial} x {decon, no-decon at
 0.315}, each case running the REAL pipeline (generate -> datastore ->

@@ -1,4 +1,4 @@
-"""Full CLI pipeline E2E: the TPU analog of the reference simulation
+"""Full CLI pipeline E2E: the analog of the reference simulation
 matrix harness (`tests/test_simulation_example_pipeline.py`), exercising
 the real pipeline through the CLI surface: sim-convert --generate →
 sim-datastore → sim-preprocess (RLGC decon + registration + prediction) →

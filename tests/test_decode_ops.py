@@ -194,186 +194,105 @@ def test_downsample_anisotropic():
     np.testing.assert_allclose(out[0, 0, 0], img[:2, :3, :3].mean())
 
 
-def test_pallas_decode_matches_xla_interpret():
-    """The fused Pallas decode kernel must match the XLA path (interpret
-    mode on CPU); only exact similarity ties may differ in argmax order."""
-    from jax.experimental.pallas import tpu as pltpu
+# -- decode and lowpass+decode against a float64 numpy oracle
+def _np_decode(vol, cb, bg, norm, mag_thr, dist_thr):
+    """Nearest codeword in float64: (labels, top-2 similarity gap)."""
+    bits = vol.shape[0]
+    t = vol.reshape(bits, -1).astype(np.float64)
+    scaled = np.clip((t - bg[:, None]) / norm[:, None], 0.0, 1.0)
+    mag = np.sqrt((scaled**2).sum(0))
+    unit = scaled / np.maximum(mag, 1e-12)
+    cbn = cb / np.linalg.norm(cb, axis=1, keepdims=True)
+    sims = cbn.astype(np.float64) @ unit
+    order = np.sort(sims, axis=0)
+    gap = order[-1] - order[-2]
+    dist = np.sqrt(np.maximum(2 - 2 * order[-1], 0))
+    ok = (dist <= dist_thr) & (mag >= mag_thr[0]) & (mag <= mag_thr[1])
+    labels = np.where(ok, sims.argmax(0), -1).reshape(vol.shape[1:])
+    return labels, gap.reshape(vol.shape[1:]), scaled.reshape(vol.shape)
 
-    rng = np.random.default_rng(0)
+
+def _spotty_volume(cb, shape, seed):
+    rng = np.random.default_rng(seed)
+    bits = cb.shape[1]
+    vol = rng.gamma(2.0, 20.0, (bits, *shape)).astype(np.float32)
+    for _ in range(40):
+        g = rng.integers(0, len(cb))
+        z, y, x = (rng.integers(0, n) for n in shape)
+        vol[:, z, y, x] += cb[g] * rng.uniform(300, 900)
+    return vol
+
+
+def _assert_labels_match(got, labels, gap):
+    decided = gap > 1e-5
+    np.testing.assert_array_equal(got[decided], labels[decided])
+    assert decided.mean() > 0.5
+
+
+@pytest.mark.parametrize("shape", [(3, 37, 40), (5, 64, 33), (2, 129, 17)])
+def test_decode_matches_numpy_oracle(shape):
+    """Ragged y and x extents decode like the float64 oracle wherever the
+    nearest codeword is decided (top-2 gap > 1e-5)."""
     cb = _mhd4_codebook()
-    traces = (rng.random((16, 300)) * 2).astype(np.float32)  # (bits, N)
-    bg = (rng.random(16) * 0.1).astype(np.float32)
-    norm = (rng.random(16) + 0.5).astype(np.float32)
-    cbt = jnp.asarray(dec.normalize_codebook(cb).T)
-    bx, dx, mx, sx = dec._decode_chunk_xla(
-        jnp.asarray(traces), cbt, jnp.asarray(bg), jnp.asarray(norm)
+    bits = cb.shape[1]
+    vol = _spotty_volume(cb, shape, seed=sum(shape))
+    bg = np.full(bits, 30.0, np.float32)
+    norm = np.full(bits, 500.0, np.float32)
+    pix_thr, _ = dec.caller_thresholds(4)
+    decoded, mag, dist, scaled = dec.decode_volume(
+        vol, cb, bg, norm, magnitude_threshold=(0.3, 10.0),
+        distance_threshold=pix_thr,
     )
-    with pltpu.force_tpu_interpret_mode():
-        bp, dp, mp, sp = dec._decode_chunk_pallas(
-            jnp.asarray(traces), cbt, jnp.asarray(bg), jnp.asarray(norm), tile_n=128
-        )
-    np.testing.assert_allclose(np.asarray(dx), np.asarray(dp), atol=1e-6)
-    np.testing.assert_allclose(np.asarray(mx), np.asarray(mp), atol=1e-6)
-    np.testing.assert_allclose(np.asarray(sx), np.asarray(sp), atol=1e-6)
-    diff = np.asarray(bx) != np.asarray(bp)
-    # any argmax difference must be an exact (float-eps) similarity tie
-    unit = np.asarray(
-        dec._scale_clip_normalize(
-            jnp.asarray(traces), jnp.asarray(bg), jnp.asarray(norm)
-        )[0]
-    )
-    sims = np.asarray(cbt).T @ unit  # (words, N)
-    for i in np.where(diff)[0]:
-        top2 = np.sort(sims[:, i])[::-1][:2]
-        assert top2[0] - top2[1] < 1e-6
+    labels, gap, scaled_ref = _np_decode(vol, cb, bg, norm, (0.3, 10.0), pix_thr)
+    _assert_labels_match(decoded, labels, gap)
+    assert (labels >= 0).sum() > 0
+    np.testing.assert_allclose(scaled, scaled_ref, atol=1e-3)
 
 
-def test_fused_lowpass_decode_matches_reference_path():
-    """The 3-pass fused Pallas pipeline must reproduce
-    gaussian_lowpass + decode_planes (interpret mode)."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    from merfish3d_tpu.ops.filters import gaussian_lowpass
-    from merfish3d_tpu.ops.fused_decode import fused_lowpass_decode
-
-    rng = np.random.default_rng(0)
+@pytest.mark.parametrize("z_chunk", [1, 3, 8])
+def test_lowpass_decode_matches_scipy_oracle(z_chunk):
+    """Lowpass + decode, streamed in z-chunks that do and do not divide
+    the depth, against scipy's gaussian_filter and the float64 oracle."""
     cb = _mhd4_codebook()
-    cbt = jnp.asarray(dec.normalize_codebook(cb).T)
-    vol = jnp.asarray((rng.random((16, 6, 32, 160)) * 100).astype(np.float32))
-    bg = jnp.asarray(rng.random(16).astype(np.float32))
-    nm = jnp.asarray(((rng.random(16) + 0.5) * 40).astype(np.float32))
-    kw = dict(magnitude_threshold=(0.9, 10.0), distance_threshold=0.5176)
-    lp = gaussian_lowpass(vol, sigma=(3.0, 1.0, 1.0))
-    d0, m0, di0, s0 = dec.decode_planes(lp, cbt, bg, nm, use_pallas=False, **kw)
-    with pltpu.force_tpu_interpret_mode():
-        d1, m1, di1, s1 = fused_lowpass_decode(
-            vol, cbt, bg, nm, sigma=(3.0, 1.0, 1.0), **kw
-        )
-    assert (np.asarray(d0) == np.asarray(d1)).mean() == 1.0
-    # float tolerances: the fused kernel stores bf16 (Mosaic has no f16
-    # stores) before the f16 cast, so stored values carry one bf16
-    # rounding (rel ~2^-9); thresholds/argmax run in f32 pre-store
-    np.testing.assert_allclose(
-        np.asarray(m0, np.float32), np.asarray(m1, np.float32),
-        rtol=4e-3, atol=1e-3,
+    bits = cb.shape[1]
+    vol = _spotty_volume(cb, (7, 40, 36), seed=11)
+    bg = np.full(bits, 20.0, np.float32)
+    norm = np.full(bits, 60.0, np.float32)
+    sigma = (3.0, 1.0, 1.0)
+    lp = np.asarray(gaussian_lowpass(jnp.asarray(vol), sigma=sigma))
+    lp_ref = np.stack(
+        [scipy.ndimage.gaussian_filter(v.astype(np.float64), sigma, mode="reflect")
+         for v in vol]
     )
-    np.testing.assert_allclose(
-        np.asarray(di0, np.float32), np.asarray(di1, np.float32),
-        rtol=4e-3, atol=2e-3,
+    np.testing.assert_allclose(lp, lp_ref, rtol=1e-4, atol=1e-3)
+    pix_thr, _ = dec.caller_thresholds(4)
+    decoded, *_ = dec.decode_volume(
+        jnp.asarray(lp), cb, bg, norm, magnitude_threshold=(0.3, 10.0),
+        distance_threshold=pix_thr, z_chunk=z_chunk, return_scaled=False,
     )
-    np.testing.assert_allclose(
-        np.asarray(s0, np.float32), np.asarray(s1, np.float32),
-        rtol=4e-3, atol=2e-3,
-    )
+    labels, gap, _ = _np_decode(lp_ref, cb, bg, norm, (0.3, 10.0), pix_thr)
+    _assert_labels_match(decoded, labels, gap)
+    assert (labels >= 0).sum() > 0
 
 
-def test_fused_lowpass_decode_ragged_ny():
-    """Non-block-multiple Y (ragged path: host symmetric pad) must match
-    the reference path too — exercises the pad-≥-halo bump."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    from merfish3d_tpu.ops.filters import gaussian_lowpass
-    from merfish3d_tpu.ops.fused_decode import fused_lowpass_decode
-
-    rng = np.random.default_rng(3)
-    cb = _mhd4_codebook()
-    cbt = jnp.asarray(dec.normalize_codebook(cb).T)
-    # ny=40: 40 % 16 != 0 and round_up(40,16)=48 leaves pad 8 >= ry=4
-    vol = jnp.asarray((rng.random((16, 5, 40, 128)) * 100).astype(np.float32))
-    bg = jnp.asarray(rng.random(16).astype(np.float32))
-    nm = jnp.asarray(((rng.random(16) + 0.5) * 40).astype(np.float32))
-    kw = dict(magnitude_threshold=(0.9, 10.0), distance_threshold=0.5176)
-    lp = gaussian_lowpass(vol, sigma=(3.0, 1.0, 1.0))
-    d0, m0, di0, s0 = dec.decode_planes(lp, cbt, bg, nm, use_pallas=False, **kw)
-    with pltpu.force_tpu_interpret_mode():
-        d1, m1, di1, s1 = fused_lowpass_decode(
-            vol, cbt, bg, nm, sigma=(3.0, 1.0, 1.0), **kw
-        )
-    assert (np.asarray(d0) == np.asarray(d1)).mean() == 1.0
-    np.testing.assert_allclose(
-        np.asarray(m0, np.float32), np.asarray(m1, np.float32),
-        rtol=4e-3, atol=1e-3,
-    )
-    np.testing.assert_allclose(
-        np.asarray(di0, np.float32), np.asarray(di1, np.float32),
-        rtol=4e-3, atol=2e-3,
-    )
-
-
-def test_fused_decode_volume_slab_streaming():
-    """y-slab streaming must agree with the whole-volume fused pipeline."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    from merfish3d_tpu.ops.fused_decode import fused_decode_volume
-
-    rng = np.random.default_rng(1)
-    cb = _mhd4_codebook()
-    vol = (rng.random((16, 4, 48, 128)) * 100).astype(np.float32)
-    bg = rng.random(16).astype(np.float32)
-    nm = ((rng.random(16) + 0.5) * 40).astype(np.float32)
-    kw = dict(
-        magnitude_threshold=(0.9, 10.0), distance_threshold=0.5176,
-        sigma=(0.0, 1.0, 1.0),
-    )
-    with pltpu.force_tpu_interpret_mode():
-        whole = fused_decode_volume(vol, cb, bg, nm, **kw)
-        slabbed = fused_decode_volume(
-            vol, cb, bg, nm, y_slab=16, hbm_budget_bytes=0, **kw
-        )
-    np.testing.assert_array_equal(whole[0], slabbed[0])
-    np.testing.assert_allclose(
-        np.asarray(whole[1], np.float32), np.asarray(slabbed[1], np.float32),
-        atol=2e-3,
-    )
-    np.testing.assert_allclose(
-        np.asarray(whole[3], np.float32), np.asarray(slabbed[3], np.float32),
-        atol=2e-3,
-    )
-
-
-def test_fused_decode_volume_scaled_gather():
-    """`scaled_as="gather"` must return exactly the dense scaled values at
-    every decoded voxel, in both the whole-volume and streamed paths."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    from merfish3d_tpu.ops.fused_decode import fused_decode_volume
+def test_sparse_intensity_gather_matches_dense():
+    """The decoder's foreground-only device gather returns exactly the
+    dense lowpassed intensities at the decoded voxels."""
+    from merfish3d_tpu.pipeline.decoder import _sparse_intensity_from_device
 
     rng = np.random.default_rng(4)
-    cb = _mhd4_codebook()
-    # paint real codeword spots so the foreground is non-empty in every slab
-    vol = (rng.random((16, 4, 48, 128)) * 2).astype(np.float32)
-    for k, (z, y, x) in enumerate([(1, 8, 20), (2, 24, 70), (1, 40, 110)]):
-        on = np.flatnonzero(cb[k % len(cb)])
-        vol[on, z, y : y + 2, x : x + 3] = 90.0
-    bg = np.zeros(16, np.float32)
-    nm = np.full(16, 40.0, np.float32)
-    kw = dict(
-        magnitude_threshold=(0.9, 10.0), distance_threshold=0.5176,
-        sigma=(0.0, 1.0, 1.0),
+    lp = rng.random((5, 3, 20, 24)).astype(np.float32)
+    decoded = np.full((3, 20, 24), -1, np.int16)
+    fg = rng.choice(decoded.size, 37, replace=False)
+    decoded.ravel()[fg] = rng.integers(0, 9, fg.size)
+    sparse = _sparse_intensity_from_device(jnp.asarray(lp), decoded)
+    lin = np.sort(fg)
+    np.testing.assert_array_equal(sparse(lin), lp.reshape(5, -1)[:, lin])
+    np.testing.assert_array_equal(sparse(lin[::3]), lp.reshape(5, -1)[:, lin[::3]])
+    empty = _sparse_intensity_from_device(
+        jnp.asarray(lp), np.full((3, 20, 24), -1, np.int16)
     )
-    with pltpu.force_tpu_interpret_mode():
-        dense = fused_decode_volume(vol, cb, bg, nm, **kw)
-        whole = fused_decode_volume(vol, cb, bg, nm, scaled_as="gather", **kw)
-        slabbed = fused_decode_volume(
-            vol, cb, bg, nm, y_slab=16, hbm_budget_bytes=0,
-            scaled_as="gather", **kw
-        )
-    np.testing.assert_array_equal(dense[0], whole[0])
-    np.testing.assert_array_equal(dense[0], slabbed[0])
-    lin = np.flatnonzero(dense[0].ravel() >= 0)
-    assert lin.size > 0
-    bits = vol.shape[0]
-    expected = np.stack(
-        [np.asarray(dense[3][b], np.float32).ravel()[lin] for b in range(bits)]
-    )
-    for sparse, label in ((whole[3], "whole"), (slabbed[3], "slab")):
-        assert callable(sparse) and sparse.nbits == bits
-        np.testing.assert_allclose(sparse(lin), expected, atol=2e-3, err_msg=label)
-        # subset gather (post-mask label foreground) also exact
-        sub = lin[::3]
-        np.testing.assert_allclose(
-            sparse(sub), expected[:, ::3], atol=2e-3, err_msg=label
-        )
+    assert empty(np.zeros(0, np.int64)).shape == (5, 0)
 
 
 def test_component_stats_overflow_does_not_corrupt_survivors():

@@ -1,6 +1,6 @@
 """Pinned F1 regression matrix over the REAL pipeline.
 
-TPU analog of the reference's standard simulation matrix with exact
+Analog of the reference's standard simulation matrix with exact
 expected values (`tests/test_simulation_example_pipeline.py:158-183,
 244-313`, tolerance ±0.02 `:47`): {cells, uniform} x {0.315, 1.0, 1.5 um
 axial} no-decon, plus {cells, uniform} x 0.315 um with RLGC decon. Each

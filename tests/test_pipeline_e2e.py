@@ -1,6 +1,6 @@
 """End-to-end simulation regression: synthetic experiment → decode → F1.
 
-The TPU analog of the reference E2E matrix
+The analog of the reference E2E matrix
 (`tests/test_simulation_example_pipeline.py`): generate a hermetic
 synthetic MERFISH experiment, run the full decode pipeline (normalization
 seeding + iterative optimization + decode + blank-fraction filter), and

@@ -37,7 +37,7 @@ def test_warp_pixel_applies_camera_affine_before_global():
 
 
 def test_device_resident_stack_decode_matches_host(tmp_path, monkeypatch):
-    """Decoding from a device-resident warped stack (the TPU zero-readback
+    """Decoding from a device-resident warped stack (the zero-readback
     path, forced here via MERFISH3D_DECODE_DEVICE_STACK=1) must produce a
     table identical to the host-stack path."""
     import pandas as pd

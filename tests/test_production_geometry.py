@@ -6,9 +6,9 @@ unfetchable statphysbio archives.
 
 `test_production_smoke` always runs (reduced geometry, validates the
 harness and the production machinery paths, F1 exact-pinned). The
-mid-size pinned run is opt-in (`--run-f1-production`); `bench.py` runs
-the FULL (16, 1024, 1024) geometry with RLGC decon on TPU every round
-and records rate + F1 in the driver-captured BENCH artifact.
+mid-size pinned run is opt-in (`--run-f1-production`); `chip_smoke.py`
+and `bench.py` run the FULL (16, 1024, 1024) geometry with RLGC decon on
+the GPU and print F1.
 """
 
 import pytest
@@ -45,14 +45,13 @@ def test_production_smoke(tmp_path):
 
 def test_production_mid(tmp_path, request):
     """Mid production geometry with RLGC decon, exact-pinned (opt-in:
-    ~1-2 h on one CPU core; the same configuration measured F1 0.9243 on
-    the real v5e — precision 0.927 / recall 0.922 — after the r5
-    MIN_STOP_ITERS fix un-flattened 9/16 readout bits and the
-    Nyquist-keyed minimum_pixels=28 default cut the small-component junk).
-    The FULL (16, 1024, 1024) geometry runs on TPU every round via
-    ``bench.py::bench_production_case`` with the F1 recorded in the
-    driver-captured BENCH artifact (measured 0.8699 there — the denser
-    2400-spot clustered field pays a spot-collision recall tax)."""
+    ~1-2 h on one CPU core; the pin, F1 0.9243 — precision 0.927 /
+    recall 0.922 — dates from the MIN_STOP_ITERS fix that un-flattened
+    9/16 readout bits and the Nyquist-keyed minimum_pixels=28 default
+    that cut the small-component junk). The FULL (16, 1024, 1024)
+    geometry runs on the GPU in ``chip_smoke.py`` (phase 2) and
+    ``bench.py`` — the denser 2400-spot clustered field pays a
+    spot-collision recall tax there."""
     if not request.config.getoption("--run-f1-production"):
         pytest.skip("pass --run-f1-production (slow: decon at mid mosaic)")
     r = run_production_case(
@@ -68,8 +67,8 @@ def test_production_mid(tmp_path, request):
         num_iterations=3,
         seed=21,
     )
-    assert abs(r["f1"] - 0.9243) <= 0.03, r  # v5e-measured pin; CPU may
-    # differ by FFT/accumulation order inside the one extra tolerance step
+    assert abs(r["f1"] - 0.9243) <= 0.03, r  # devices may differ by
+    # FFT/accumulation order inside the one extra tolerance step
     assert r["blank_filter_sweep_points"] >= 3
     # registration fidelity at production scale: recovered round shifts
     # cancel the injected truth to sub-pixel residual

@@ -32,24 +32,35 @@ def _blob_volume(shape=(12, 48, 48), n=6, seed=0):
     return vol
 
 
-def test_next_smooth_fft_size(monkeypatch):
-    monkeypatch.setattr(fftutils, "_FFT_IMPL", "xla")
+def _is_23_smooth(n: int) -> bool:
+    for p in (2, 3):
+        while n % p == 0:
+            n //= p
+    return n == 1
+
+
+def test_next_smooth_fft_size():
     assert fftutils.next_smooth_fft_size(1) == 1
     assert fftutils.next_smooth_fft_size(5) == 6
     assert fftutils.next_smooth_fft_size(17) == 18
     assert fftutils.next_smooth_fft_size(65) == 72
     assert fftutils.next_smooth_fft_size(96) == 96
-    # matmul impl: any composite with a cheap split is allowed; the pick
-    # must lie within the 2,3-smooth cover and never cost more per line
-    monkeypatch.setattr(fftutils, "_FFT_IMPL", "matmul")
+    # the smallest 2,3-smooth cover, as the reference sizes cuFFT
     for x in (5, 17, 65, 96, 1038, 2062):
         n = fftutils.next_smooth_fft_size(x)
-        cover = fftutils._next_23_smooth(x)
-        assert x <= n <= cover
-        assert (
-            n * fftutils._matmul_line_cost(n)
-            <= cover * fftutils._matmul_line_cost(cover)
-        )
+        assert n >= x and _is_23_smooth(n)
+        assert not any(_is_23_smooth(m) for m in range(x, n))
+
+
+# padded axis lengths of real tiles: 2048² camera frames and 1024² crops
+# with 15–51 px PSF halos, 16–100-plane stacks with their axial halos
+@pytest.mark.parametrize(
+    "x,expected",
+    [(2048, 2048), (2062, 2187), (2098, 2187), (1038, 1152), (1074, 1152),
+     (50, 54), (66, 72), (116, 128)],
+)
+def test_next_smooth_fft_size_real_widths(x, expected):
+    assert fftutils.next_smooth_fft_size(x) == expected
 
 
 def test_fft_conv_matches_scipy():
@@ -165,9 +176,10 @@ def test_rlgc_diagnostics_variant_matches(caplog):
 
 
 def test_auto_crop_yx_budget():
-    """The static HBM-budget crop selection (TPU replacement for the
-    reference's OOM-retry shrink, `rlgc.py:1152-1171`): full 2048-px
-    camera frames tile down, small volumes stay untiled."""
+    """The static memory-budget crop selection (in place of the
+    reference's OOM-retry shrink, `rlgc.py:1152-1171`): at the 16 GiB
+    reference limit (the CPU's) full 2048-px camera frames tile down,
+    small volumes stay untiled."""
     from merfish3d_tpu.ops.rlgc import auto_crop_yx
 
     psf_shape = (9, 15, 15)
@@ -180,28 +192,6 @@ def test_auto_crop_yx_budget():
     assert auto_crop_yx((96, 2048, 2048), psf_shape) <= auto_crop_yx(
         (16, 2048, 2048), psf_shape
     )
-
-
-def test_next_smooth_size_avoids_radix3_dominated(monkeypatch):
-    """XLA-FFT sizes cap the 3-exponent (pure 3^k sizes fail to compile
-    on TPU: 2062 must pick 2304 = 2^8*3^2, not 2187 = 3^7)."""
-    from merfish3d_tpu.ops import fftutils
-    from merfish3d_tpu.ops.fftutils import next_smooth_fft_size
-
-    monkeypatch.setattr(fftutils, "_FFT_IMPL", "xla")
-    assert next_smooth_fft_size(2062) == 2304
-    assert next_smooth_fft_size(1038) == 1152
-    assert next_smooth_fft_size(40) == 48
-    for x in (7, 100, 513, 1025):
-        n = next_smooth_fft_size(x)
-        assert n >= x
-        m, threes = n, 0
-        while m % 2 == 0:
-            m //= 2
-        while m % 3 == 0:
-            m //= 3
-            threes += 1
-        assert m == 1 and threes <= 3
 
 
 def test_max_vmap_batch_budget():
@@ -239,107 +229,100 @@ def test_max_vmap_batch_budget():
     ) == max(1, int(1.4e8 // padded))
 
 
-def test_ratio_kld_kernel_matches_reference_formulas():
-    """One-pass Pallas ratios+KLD == the generic mask/denom/_kl_div math
-    (incl. the NaN→0 zeroing of negative-Hu entries)."""
-    from jax.experimental.pallas import tpu as pltpu
+# -- the generic iteration chain against the reference formulas
+# (reference `rlgc.py:389-419,598-601,627-693`), in float64 numpy
+_SHAPE = (4, 8, 256)
+_PAD = ((1, 1), (2, 1), (3, 5))
 
+
+def _np_kl(p, q, mask, eps=1e-4):
+    p = (p.astype(np.float64) + eps) * mask
+    q = (q.astype(np.float64) + eps) * mask
+    p, q = p / p.sum(), q / q.sum()
+    with np.errstate(divide="ignore", invalid="ignore"):
+        k = p * (np.log(p) - np.log(q))
+    return np.nansum(k)
+
+
+def test_ratio_kld_chain_matches_reference_formulas():
+    """Ratios + split KLDs, including the NaN→0 zeroing of negative-Hu
+    entries."""
     from merfish3d_tpu.ops.fftutils import observed_region_mask
-    from merfish3d_tpu.ops.rlgc import _kl_div
-    from merfish3d_tpu.ops.rlgc_kernels import (
-        fused_elementwise_supported,
-        ratio_kld,
-    )
+    from merfish3d_tpu.ops.rlgc import _ratios_klds
 
-    shape = (4, 8, 256)
-    pad_width = ((1, 1), (2, 1), (3, 5))
-    assert fused_elementwise_supported(shape)
     rng = np.random.default_rng(3)
-    hu = rng.normal(5.0, 3.0, shape).astype(np.float32)  # some < 0
-    s1 = rng.poisson(4.0, shape).astype(np.float32)
-    s2 = rng.poisson(4.0, shape).astype(np.float32)
-    with pltpu.force_tpu_interpret_mode():
-        r1, r2, (k1, k2) = ratio_kld(
-            jnp.asarray(hu), jnp.asarray(s1), jnp.asarray(s2), pad_width
-        )
-    mask = observed_region_mask(shape, pad_width)
-    denom = 0.5 * (hu + 1e-12)
+    hu = rng.normal(5.0, 3.0, _SHAPE).astype(np.float32)  # some < 0
+    s1 = rng.poisson(4.0, _SHAPE).astype(np.float32)
+    s2 = rng.poisson(4.0, _SHAPE).astype(np.float32)
+    mask = observed_region_mask(_SHAPE, _PAD)
+    r1, r2, k1, k2 = _ratios_klds(
+        jnp.asarray(hu), jnp.asarray(s1), jnp.asarray(s2), jnp.asarray(mask)
+    )
+    denom = 0.5 * (hu.astype(np.float64) + 1e-12)
     np.testing.assert_allclose(np.asarray(r1), mask * (s1 / denom), rtol=1e-6)
     np.testing.assert_allclose(np.asarray(r2), mask * (s2 / denom), rtol=1e-6)
-    k1_ref = float(_kl_div(jnp.asarray(hu), jnp.asarray(s1), jnp.asarray(mask)))
-    k2_ref = float(_kl_div(jnp.asarray(hu), jnp.asarray(s2), jnp.asarray(mask)))
-    np.testing.assert_allclose(float(k1), k1_ref, rtol=2e-4)
-    np.testing.assert_allclose(float(k2), k2_ref, rtol=2e-4)
+    np.testing.assert_allclose(float(k1), _np_kl(hu, s1, mask), rtol=2e-4)
+    np.testing.assert_allclose(float(k2), _np_kl(hu, s2, mask), rtol=2e-4)
 
 
 @pytest.mark.parametrize("restore", [False, True])
-def test_update_select_kernel_matches_reference(restore):
-    from jax.experimental.pallas import tpu as pltpu
-
+def test_update_chain_matches_reference(restore):
+    """Consensus-gated update, boundary re-symmetrization, restore select
+    and the convergence statistics."""
     from merfish3d_tpu.ops.fftutils import observed_region_mask
-    from merfish3d_tpu.ops.rlgc_kernels import update_select
+    from merfish3d_tpu.ops.rlgc import MIN_STOP_ITERS, _apply_update
 
-    shape = (4, 8, 256)
-    pad_width = ((1, 1), (2, 1), (3, 5))
     rng = np.random.default_rng(5)
-    cons = rng.normal(0.0, 1.0, shape).astype(np.float32)
-    rec = rng.uniform(0.5, 2.0, shape).astype(np.float32)
-    prev = rng.uniform(0.5, 2.0, shape).astype(np.float32)
-    ht = rng.uniform(0.2, 1.8, shape).astype(np.float32)
-    with pltpu.force_tpu_interpret_mode():
-        nr, np_, nupd, mx_new, mx_d = update_select(
-            jnp.asarray(cons), jnp.asarray(rec), jnp.asarray(prev),
-            jnp.asarray(ht), jnp.asarray(restore), pad_width,
-        )
-    mask = observed_region_mask(shape, pad_width)
+    cons = rng.normal(0.0, 1.0, _SHAPE).astype(np.float32)
+    rec = rng.uniform(0.5, 2.0, _SHAPE).astype(np.float32)
+    prev = rng.uniform(0.5, 2.0, _SHAPE).astype(np.float32)
+    ht = rng.uniform(0.2, 1.8, _SHAPE).astype(np.float32)
+    mask = observed_region_mask(_SHAPE, _PAD)
+    n_pix = float(mask.sum())
+    new, new_prev, k1, k2, it, done = _apply_update(
+        jnp.asarray(cons), jnp.asarray(rec), jnp.asarray(prev),
+        jnp.asarray(ht), jnp.asarray(restore), (jnp.float32(1.0), jnp.float32(2.0)),
+        (jnp.float32(3.0), jnp.float32(4.0)), jnp.int32(MIN_STOP_ITERS),
+        pad_width=_PAD, mask=jnp.asarray(mask), num_pixels=n_pix,
+        limit=0.01, max_delta=0.001,
+    )
     upd = np.where(cons < 0, rec, rec * ht)
-    np.testing.assert_allclose(
-        np.asarray(nr), prev if restore else upd, rtol=1e-6
-    )
-    np.testing.assert_allclose(
-        np.asarray(np_), prev if restore else rec, rtol=1e-6
-    )
-    assert float(nupd) == np.sum((cons >= 0) * mask)
-    np.testing.assert_allclose(float(mx_new), (upd * mask).max(), rtol=1e-6)
-    np.testing.assert_allclose(
-        float(mx_d), (np.abs(upd - rec) * mask).max(), rtol=1e-6
-    )
+    interior = tuple(slice(b, n - a) for n, (b, a) in zip(_SHAPE, _PAD))
+    upd = np.pad(upd[interior], _PAD, mode="symmetric")
+    np.testing.assert_allclose(np.asarray(new), prev if restore else upd, rtol=1e-6)
+    np.testing.assert_allclose(np.asarray(new_prev), prev if restore else rec, rtol=1e-6)
+    assert (float(k1), float(k2)) == ((3.0, 4.0) if restore else (1.0, 2.0))
+    assert int(it) == MIN_STOP_ITERS + (0 if restore else 1)
+    frac = np.sum((cons >= 0) * mask) / n_pix
+    rel = np.max(np.abs(upd * mask - rec * mask)) / (upd * mask).max()
+    assert bool(done) == (restore or frac < 0.01 or rel < 0.001)
 
 
-def test_rlgc_fused_elementwise_path_matches_generic(monkeypatch):
-    """Full solve with the fused elementwise kernels == the generic XLA
-    path (same splits/FFTs; only reduction order differs)."""
-    from jax.experimental.pallas import tpu as pltpu
+def test_split_ht_neutralizes_unsupported_padding():
+    """ht := 1 (the no-op update) wherever the adjoint normalization has
+    no mask support; g / norm elsewhere."""
+    from merfish3d_tpu.ops.rlgc import _split_ht
 
-    img = _blob_volume(shape=(10, 28, 120))
-    psf = _gaussian_psf(shape=(3, 5, 5), sigma=(0.8, 1.0, 1.0))
-    monkeypatch.setenv("MERFISH3D_RLGC_FUSED", "0")
-    ref = rlgc(img, psf, max_iters=4)
-    monkeypatch.setenv("MERFISH3D_RLGC_FUSED", "1")
-    from merfish3d_tpu.ops.fftutils import linear_fft_pad_width
-
-    pads = linear_fft_pad_width(img.shape, psf.shape)
-    padded = tuple(n + b + a for n, (b, a) in zip(img.shape, pads))
-    from merfish3d_tpu.ops.rlgc_kernels import fused_elementwise_supported
-
-    assert fused_elementwise_supported(padded), padded
-    with pltpu.force_tpu_interpret_mode():
-        fused = rlgc(img, psf, max_iters=4)
-    np.testing.assert_allclose(fused, ref, rtol=5e-4, atol=5e-4)
+    norm = np.array([1e-6, 5e-4, 1e-3, 0.5, 1.0], np.float32)
+    gr = np.array([3.0, 3.0, 3.0, 3.0, 3.0], np.float32)
+    gi = np.array([1.0, 1.0, 1.0, 1.0, 1.0], np.float32)
+    h1, h2 = _split_ht(jnp.asarray(gr), jnp.asarray(gi), jnp.asarray(norm))
+    np.testing.assert_allclose(np.asarray(h1), [1, 1, 3e3, 6, 3], rtol=1e-6)
+    np.testing.assert_allclose(np.asarray(h2), [1, 1, 1e3, 2, 1], rtol=1e-6)
 
 
-def test_rlgc_batch_fused_path_matches_generic(monkeypatch):
-    """`rlgc_batch`'s lax.map scan must carry the fused Pallas kernels
-    (vmap has no batching rule for their ordered effects)."""
-    from jax.experimental.pallas import tpu as pltpu
+def test_binomial_half_is_exact_and_centered():
+    """The photon split: exact popcount draws up to 32 counts (every
+    draw within [0, n]), normal approximation beyond, mean n/2."""
+    import jax
 
-    imgs = np.stack(
-        [_blob_volume(shape=(10, 28, 120), seed=s) for s in (0, 1)]
-    )
-    psf = _gaussian_psf(shape=(3, 5, 5), sigma=(0.8, 1.0, 1.0))
-    monkeypatch.setenv("MERFISH3D_RLGC_FUSED", "0")
-    ref = rlgc_batch(imgs, psf, max_iters=3)
-    monkeypatch.setenv("MERFISH3D_RLGC_FUSED", "1")
-    with pltpu.force_tpu_interpret_mode():
-        fused = rlgc_batch(imgs, psf, max_iters=3)
-    np.testing.assert_allclose(fused, ref, rtol=5e-4, atol=5e-4)
+    from merfish3d_tpu.ops.rlgc import _binomial_half
+
+    counts = np.repeat(np.array([0, 1, 7, 32, 33, 500], np.int32), 4000)
+    draws = np.asarray(_binomial_half(jax.random.PRNGKey(0), jnp.asarray(counts)))
+    assert np.all((draws >= 0) & (draws <= counts))
+    assert np.all(draws == np.round(draws))
+    for n in (1, 7, 32, 33, 500):
+        sel = draws[counts == n]
+        assert abs(sel.mean() - n / 2) < 4 * np.sqrt(n / 4 / sel.size) + 1e-9
+        assert abs(sel.var() - n / 4) < 0.15 * n / 4

@@ -124,7 +124,7 @@ def test_predictor_volume_contract_with_torch_weights():
     variables = structural_onnx_to_flax(stream, base_features=8)
 
     # compute_dtype f32 = exact-parity mode (the default bf16 conv path
-    # trades ~3-digit probability precision for MXU-native throughput;
+    # trades ~3-digit probability precision for tensor-core throughput;
     # its drift vs f32 is bounded by test_bf16_compute_close_to_f32)
     pred = UFishPredictor(
         params=variables, base_features=8, compute_dtype=jnp.float32

@@ -112,7 +112,7 @@ def test_predictor_instances_share_compiled_programs():
 
     planes = jnp.zeros((3, 48, 48), jnp.float32)
 
-    runner = m._run_fast if m._use_fast_convs() else m._run_flax
+    runner = m._run_unet
     base = runner._cache_size()
     variables = train_ufish(steps=1, base_features=4, size=48, seed=0)
     for _ in range(2):

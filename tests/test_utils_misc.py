@@ -516,21 +516,18 @@ def test_bounded_writer_drains_and_reraises():
             w.submit(fail)  # blocks on the first future -> re-raises
 
 
-def test_bounded_writer_paused_submit_does_not_deadlock():
-    """A full queue makes room even while paused: submit reopens the gate
-    to reap the head job, then restores the pause (ADVICE r4)."""
-    import time
-
+def test_bounded_writer_error_shuts_thread_down():
+    """A failure ends the writer: the caller's error propagates, queued
+    jobs are reaped, and the worker thread is gone, so a failed phase can
+    never leave a thread that keeps the process from exiting."""
     from merfish3d_tpu.datastore.prefetch import BoundedWriter
 
     done = []
-    w = BoundedWriter(depth=1)
-    w.pause()
-    w.submit(done.append, 1)  # queued, job blocked on the gate
-    t0 = time.monotonic()
-    w.submit(done.append, 2)  # must reap the head without external resume
-    assert time.monotonic() - t0 < 10
-    assert done == [1]
-    assert not w._gate.is_set()  # pause restored
-    w.drain()
+    with pytest.raises(RuntimeError, match="phase failed"):
+        with BoundedWriter(depth=4) as w:
+            w.submit(done.append, 1)
+            w.submit(done.append, 2)
+            raise RuntimeError("phase failed")
     assert done == [1, 2]
+    threads = list(w._pool._threads)
+    assert threads and not any(t.is_alive() for t in threads)
